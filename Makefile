@@ -11,8 +11,8 @@ bench:
 	python bench.py
 
 planner:
-	python -c "from graphmat_tpu.native import load_planner; \
+	python -c "from graphmat.native import load_planner; \
 	           assert load_planner() is not None, 'planner build failed'"
 
 clean:
-	rm -f graphmat_tpu/native/libgmplanner.so
+	rm -f graphmat/native/libgmplanner.so

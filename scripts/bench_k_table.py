@@ -1,9 +1,7 @@
-"""Per-K cost table for the K-wide vector kernels (VERDICT r3 #5).
+"""Per-K cost table for K-wide vector messages.
 
-SGD-CF 1M-rating protocol at several K values: K <= 32 rides the vec2
-kernel; K > 32 falls back to the round-1 v1 vec kernel — this measures
-the cliff so users can size K.  Slope methodology (PERF round 4a):
-per-iter = (t(4R) - t(R)) / 3R, engine end-to-end.
+SGD-CF 1M-rating protocol at several K values, so users can size K.
+Slope methodology: per-iter = (t(4R) - t(R)) / 3R, engine end-to-end.
 
 Env: KTAB_KS (comma list, default 8,20,32,40), KTAB_REPS (10).
 """
@@ -17,10 +15,10 @@ import numpy as np
 def main():
     import jax
 
-    from graphmat_tpu import Graph
-    from graphmat_tpu.apps.sgd import SGDProgram, init_sgd_graph
-    from graphmat_tpu.core.runtime import Engine
-    from graphmat_tpu.io.edgelist import EdgeList
+    from graphmat import Graph
+    from graphmat.apps.sgd import SGDProgram, init_sgd_graph
+    from graphmat.core.runtime import Engine
+    from graphmat.io.edgelist import EdgeList
 
     ks = [int(x) for x in os.environ.get(
         "KTAB_KS", "8,20,32,40").split(",")]
@@ -35,15 +33,12 @@ def main():
     el = EdgeList(src=us, dst=it, val=val, m=n, n=n)
     g = Graph(el)
 
-    print(f"{'K':>4} {'kernel':>6} {'ms/iter':>8} {'M upd/s':>8}",
-          flush=True)
+    print(f"{'K':>4} {'ms/iter':>8} {'M upd/s':>8}", flush=True)
     for K in ks:
         prog = SGDProgram(k=K)
         init_sgd_graph(g, K)
         g.set_all_active()
         eng = Engine(prog, g)
-        kern = ("vec2" if eng.use_pallas_vec2
-                else ("vec1" if eng.use_pallas_vec else "xla"))
         ts = {}
         for nit in (reps, 4 * reps):
             init_sgd_graph(g, K)
@@ -63,7 +58,7 @@ def main():
             ts[nit] = best
         per = (ts[4 * reps] - ts[reps]) / (3 * reps)
         mups = 2 * nr / per / 1e6
-        print(f"{K:>4} {kern:>6} {per*1e3:8.2f} {mups:8.1f}", flush=True)
+        print(f"{K:>4} {per*1e3:8.2f} {mups:8.1f}", flush=True)
 
 
 if __name__ == "__main__":

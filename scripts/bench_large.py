@@ -1,7 +1,6 @@
-"""Large-graph single-chip proof: end-to-end PageRank / BFS / CC on an
-RMAT graph beyond VMEM (HBM operand mode) — the billion-edge-class claim
-of the reference papers (/root/reference/README.md:72-79) scaled to one
-v5e chip.
+"""Large-graph single-device run: end-to-end PageRank / BFS / CC on an
+RMAT graph — the billion-edge-class claim of the reference papers
+(GraphMat README.md:72-79) scaled to one device.
 
 Usage: SCALE=23 python scripts/bench_large.py
 Env: SCALE (default 23), EDGEFACTOR (16), PR_ITERS (20).
@@ -20,14 +19,14 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from graphmat_tpu import Graph
-    from graphmat_tpu.apps.bfs import INF_DEPTH, BFSProgram, init_bfs_graph
-    from graphmat_tpu.apps.connected_components import \
+    from graphmat import Graph
+    from graphmat.apps.bfs import INF_DEPTH, BFSProgram, init_bfs_graph
+    from graphmat.apps.connected_components import \
         ConnectedComponentsProgram
-    from graphmat_tpu.apps.pagerank import (PageRankProgram,
-                                            init_pagerank_graph)
-    from graphmat_tpu.core.runtime import Engine
-    from graphmat_tpu.utils.generators import rmat_edgelist
+    from graphmat.apps.pagerank import (PageRankProgram,
+                                        init_pagerank_graph)
+    from graphmat.core.runtime import Engine
+    from graphmat.utils.generators import rmat_edgelist
 
     scale = int(os.environ.get("SCALE", "23"))
     ef = int(os.environ.get("EDGEFACTOR", "16"))

@@ -24,8 +24,8 @@ python - <<PY
 import jax; jax.config.update('jax_platforms','cpu')
 import numpy as np, os, sys
 sys.path.insert(0, "$REPO")
-from graphmat_tpu.utils.generators import rmat_edgelist
-from graphmat_tpu.io.edgelist import EdgeList, write_edgelist
+from graphmat.utils.generators import rmat_edgelist
+from graphmat.io.edgelist import EdgeList, write_edgelist
 
 def link(p):
     if not os.path.exists(p + "0"):

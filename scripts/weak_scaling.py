@@ -5,7 +5,7 @@ Usage (virtual CPU devices, the mpirun analog)::
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python scripts/weak_scaling.py --platform cpu --scale 14
 
-On real multi-chip hardware drop ``--platform cpu``.  Keeps the per-device
+On real multi-GPU hardware drop ``--platform cpu``.  Keeps the per-device
 edge count constant (RMAT scale grows with the mesh) and reports iterations
 per second and weak-scaling efficiency vs the 1-device run — the
 reference-equivalent metric is BASELINE.md's >=80% at 1->4 hosts.
@@ -32,8 +32,8 @@ def main() -> int:
     ap.add_argument("--platform", default=None)
     ap.add_argument("--max-devices", type=int, default=None)
     ap.add_argument("--workloads", default="pagerank,sgd",
-                    help="comma list: pagerank (scalar v2u tiles), sgd "
-                         "(K-wide vec2 tiles + vp row-broadcast)")
+                    help="comma list: pagerank (scalar messages), sgd "
+                         "(K-wide messages + vp row-broadcast)")
     args = ap.parse_args()
 
     if args.platform:
@@ -42,11 +42,11 @@ def main() -> int:
     import jax
     import numpy as np
 
-    from graphmat_tpu.apps.pagerank import DegreeProgram, PageRankProgram
-    from graphmat_tpu.parallel.dist_graph import DistGraph
-    from graphmat_tpu.parallel.dist_runtime import DistEngine
-    from graphmat_tpu.parallel.mesh import factor2d, make_mesh
-    from graphmat_tpu.utils.generators import rmat_edgelist
+    from graphmat.apps.pagerank import DegreeProgram, PageRankProgram
+    from graphmat.parallel.dist_graph import DistGraph
+    from graphmat.parallel.dist_runtime import DistEngine
+    from graphmat.parallel.mesh import factor2d, make_mesh
+    from graphmat.utils.generators import rmat_edgelist
 
     devices = jax.devices()
     counts = []
@@ -58,11 +58,9 @@ def main() -> int:
 
     import math
 
-    from graphmat_tpu.io.edgelist import EdgeList
-    from graphmat_tpu.ops.pallas_compact import H_COMPACT_MIN
+    from graphmat.io.edgelist import EdgeList
 
     workloads = args.workloads.split(",")
-    compact_env = os.environ.get("GRAPHMAT_COMPACT")
     results = []
     base_rate = {}
     for nd in counts:
@@ -77,12 +75,8 @@ def main() -> int:
             g.init_vertexproperty(pagerank=np.float32(0.3),
                                   degree=np.int32(0))
             g.set_all_active()
-            # use_pallas=True: force the shipping Pallas tile kernels
-            # even on CPU (interpret mode) so the measured dataflow is
-            # the production one
-            DistEngine(DegreeProgram(), g, use_pallas=True).run(
-                iterations=1)
-            eng = DistEngine(PageRankProgram(), g, use_pallas=True)
+            DistEngine(DegreeProgram(), g).run(iterations=1)
+            eng = DistEngine(PageRankProgram(), g)
             S = g.S
             # analytic per-device per-iteration collective bytes
             # (f32 msg all_gather 'r', f32 partial psum_scatter 'c',
@@ -93,7 +87,7 @@ def main() -> int:
                     "convergence_psum_bytes": 4}
             runs.append(("pagerank", e.nnz, g, eng, coll))
         if "sgd" in workloads:
-            # bipartite ratings scaled per device; K=20 vec2 tiles
+            # bipartite ratings scaled per device; K=20
             K = 20
             rng = np.random.default_rng(13 + nd)
             nu = (1 << (args.scale - 2)) * nd
@@ -105,18 +99,17 @@ def main() -> int:
                           val=rng.integers(1, 6, nr).astype(np.float64),
                           m=n2, n=n2)
             g2 = DistGraph(el, mesh)
-            from graphmat_tpu.apps.sgd import SGDProgram, init_sgd_graph
+            from graphmat.apps.sgd import SGDProgram, init_sgd_graph
             init_sgd_graph(g2, K)
             g2.set_all_active()
-            eng2 = DistEngine(SGDProgram(k=K), g2, use_pallas=True)
+            eng2 = DistEngine(SGDProgram(k=K), g2)
             S2 = g2.S
-            # vec2 collective model: K-wide msg all_gather 'r', K-wide
-            # vp row-broadcast all_gather 'c' (SpMSpV3's second
-            # operand, multinode/spmspv3.h:74-143), 32-lane-padded
-            # partial psum_scatter 'c'
+            # collective model: K-wide msg all_gather 'r', K-wide vp
+            # row-broadcast all_gather 'c' (SpMSpV3's second operand,
+            # multinode/spmspv3.h:74-143), K-wide partial psum_scatter 'c'
             coll2 = {"all_gather_r_bytes": int((R - 1) * S2 * K * 4),
                      "vp_all_gather_c_bytes": int((C - 1) * S2 * K * 4),
-                     "psum_scatter_c_bytes": int((C - 1) * S2 * 32 * 4),
+                     "psum_scatter_c_bytes": int((C - 1) * S2 * K * 4),
                      "convergence_psum_bytes": 4}
             runs.append(("sgd", el.nnz, g2, eng2, coll2))
 
@@ -132,20 +125,15 @@ def main() -> int:
                 base_rate[wname] = rate / nd if nd == 1 else rate
             eff = rate / (base_rate[wname] * nd)
             results.append({
-                "round": 5, "workload": wname, "devices": nd,
+                "workload": wname, "devices": nd,
                 "mesh": [int(R), int(C)], "nnz": int(nnz),
                 "gteps": round(rate, 4), "efficiency": round(eff, 3),
-                "pallas": True,
-                "compaction": ("forced-on" if compact_env not in
-                               (None, "0", "") else
-                               f"auto (H_COMPACT_MIN={H_COMPACT_MIN})"),
                 "collectives_per_iter_per_device": coll})
             print(json.dumps(results[-1]))
     print(json.dumps({"weak_scaling": results,
                       "backend": jax.default_backend(),
                       "note": ("virtual CPU devices validate the sharded "
-                               "dataflow; ICI efficiency needs real "
-                               "multi-chip hardware")}))
+                               "dataflow; efficiency needs real devices")}))
     return 0
 
 

@@ -20,14 +20,14 @@ def main() -> int:
                                  sys.argv[3], sys.argv[4])
     jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
                                num_processes=nproc, process_id=pid)
-    from graphmat_tpu.apps.bfs import BFSProgram
-    from graphmat_tpu.apps.pagerank import DegreeProgram, PageRankProgram
-    from graphmat_tpu.parallel.dist_graph import DistGraph
-    from graphmat_tpu.parallel.dist_runtime import DistEngine
-    from graphmat_tpu.parallel.multihost import (allgather_edgelist,
-                                                 hosts_mesh,
-                                                 load_edgelist_sharded)
-    from graphmat_tpu.utils.generators import rmat_edgelist
+    from graphmat.apps.bfs import BFSProgram
+    from graphmat.apps.pagerank import DegreeProgram, PageRankProgram
+    from graphmat.parallel.dist_graph import DistGraph
+    from graphmat.parallel.dist_runtime import DistEngine
+    from graphmat.parallel.multihost import (allgather_edgelist,
+                                             hosts_mesh,
+                                             load_edgelist_sharded)
+    from graphmat.utils.generators import rmat_edgelist
 
     mesh = hosts_mesh()
     assert mesh.devices.shape[0] == nproc, mesh.devices.shape

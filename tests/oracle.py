@@ -2,7 +2,7 @@
 
 A deliberately naive per-edge interpreter of the reference semantics
 (``include/GraphMatRuntime.h:94-279``), independent of the JAX engine's
-vectorized code paths.  Tests compare the TPU engine's results against this.
+vectorized code paths.  Tests compare the engine's results against this.
 
 The oracle program is a plain object with scalar (per-element) callbacks,
 mirroring the reference's C++ virtuals:

@@ -2,14 +2,14 @@
 
 import numpy as np
 
-from graphmat_tpu import Graph, load_edgelist
-from graphmat_tpu.io.converter import run as converter_run
-from graphmat_tpu.utils.checkpoint import (load_edgelist_checkpoint,
-                                           load_graph_state,
-                                           save_edgelist_checkpoint,
-                                           save_graph_state,
-                                           save_vertexproperty)
-from graphmat_tpu.utils.generators import random_edgelist
+from graphmat import Graph, load_edgelist
+from graphmat.io.converter import run as converter_run
+from graphmat.utils.checkpoint import (load_edgelist_checkpoint,
+                                       load_graph_state,
+                                       save_edgelist_checkpoint,
+                                       save_graph_state,
+                                       save_vertexproperty)
+from graphmat.utils.generators import random_edgelist
 
 
 def test_converter_binary_to_text(tmp_path):
@@ -69,7 +69,7 @@ def test_edgelist_checkpoint_roundtrip(tmp_path):
 
 
 def test_graph_state_checkpoint_roundtrip(tmp_path):
-    from graphmat_tpu.apps.pagerank import run_pagerank
+    from graphmat.apps.pagerank import run_pagerank
     e = random_edgelist(30, 3, seed=3)
     g = Graph(e)
     pr, _ = run_pagerank(g)
@@ -86,9 +86,9 @@ def test_graph_state_checkpoint_cross_topology(tmp_path):
     """Single-device state restores onto a 2x4 mesh graph (the reference
     refuses rank-count changes — we must not, SURVEY §5)."""
     import jax
-    from graphmat_tpu.parallel.dist_graph import DistGraph
-    from graphmat_tpu.parallel.mesh import make_mesh
-    from graphmat_tpu.apps.pagerank import run_pagerank
+    from graphmat.parallel.dist_graph import DistGraph
+    from graphmat.parallel.mesh import make_mesh
+    from graphmat.apps.pagerank import run_pagerank
     e = random_edgelist(30, 3, seed=4)
     g = Graph(e)
     pr, _ = run_pagerank(g)
@@ -138,11 +138,11 @@ def test_orbax_sharded_state_roundtrip_across_meshes(tmp_path):
     Graph.h:165-175)."""
     import jax
     import numpy as np
-    from graphmat_tpu.parallel.dist_graph import DistGraph
-    from graphmat_tpu.parallel.mesh import make_mesh
-    from graphmat_tpu.utils.checkpoint_orbax import (load_sharded_state,
-                                                     save_sharded_state)
-    from graphmat_tpu.utils.generators import random_edgelist
+    from graphmat.parallel.dist_graph import DistGraph
+    from graphmat.parallel.mesh import make_mesh
+    from graphmat.utils.checkpoint_orbax import (load_sharded_state,
+                                                 save_sharded_state)
+    from graphmat.utils.generators import random_edgelist
 
     e = random_edgelist(40, 3, seed=5)
     mesh_a = make_mesh(jax.devices()[:8], (2, 4))

@@ -9,17 +9,16 @@ import jax
 import numpy as np
 import pytest
 
-from graphmat_tpu import Graph
-from graphmat_tpu.apps.bfs import BFSProgram, init_bfs_graph
-from graphmat_tpu.apps.pagerank import (DegreeProgram, PageRankProgram,
-                                        init_pagerank_graph, run_pagerank)
-from graphmat_tpu.apps.sssp import SSSPProgram, init_sssp_graph, run_sssp
-from graphmat_tpu.apps.sgd import SGDProgram, init_sgd_graph, run_sgd
-from graphmat_tpu.core.runtime import Engine
-from graphmat_tpu.parallel.dist_graph import DistGraph
-from graphmat_tpu.parallel.dist_runtime import DistEngine
-from graphmat_tpu.parallel.mesh import factor2d, make_mesh
-from graphmat_tpu.utils.generators import chain_edgelist, random_edgelist
+from graphmat import Graph
+from graphmat.apps.bfs import BFSProgram
+from graphmat.apps.pagerank import (DegreeProgram, PageRankProgram,
+                                    run_pagerank)
+from graphmat.apps.sssp import SSSPProgram, run_sssp
+from graphmat.apps.sgd import SGDProgram, run_sgd
+from graphmat.parallel.dist_graph import DistGraph
+from graphmat.parallel.dist_runtime import DistEngine
+from graphmat.parallel.mesh import factor2d, make_mesh
+from graphmat.utils.generators import chain_edgelist, random_edgelist
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +54,7 @@ def test_dist_pagerank_matches_single(mesh, permute):
 
 
 def test_dist_pagerank_fixture(mesh):
-    from graphmat_tpu import load_edgelist
+    from graphmat import load_edgelist
     e = load_edgelist("data/test.bin.mtx")
     pr1, _ = run_pagerank(Graph(e))
     pr2, _ = dist_pagerank(e, mesh)
@@ -66,7 +65,7 @@ def test_dist_bfs_matches_single(mesh):
     """ACTIVE_ONLY + overwrite(min) monoid through the all_to_all path."""
     e = random_edgelist(90, 3, seed=23)
     g1 = Graph(e, build_in_edges=False)
-    from graphmat_tpu.apps.bfs import run_bfs
+    from graphmat.apps.bfs import run_bfs
     d1, p1, it1 = run_bfs(g1, 1)
 
     g2 = DistGraph(e, mesh, build_in_edges=False)
@@ -80,7 +79,7 @@ def test_dist_bfs_matches_single(mesh):
 
 def init_dist_bfs(g: DistGraph, source1: int):
     ids = np.arange(1, g.n + 1, dtype=np.int32)
-    from graphmat_tpu.apps.bfs import INF_DEPTH
+    from graphmat.apps.bfs import INF_DEPTH
     g.init_vertexproperty(depth=np.int32(INF_DEPTH), parent=np.int32(-1),
                           id=ids)
     g.set_all_inactive()
@@ -93,7 +92,7 @@ def test_dist_sssp_min_monoid(mesh):
     d1, _ = run_sssp(Graph(e, build_in_edges=False), 1)
 
     g = DistGraph(e, mesh, build_in_edges=False)
-    from graphmat_tpu.apps.sssp import INF_DIST
+    from graphmat.apps.sssp import INF_DIST
     g.init_vertexproperty(distance=np.int32(INF_DIST))
     g.set_all_inactive()
     g.set_vertexproperty(1, distance=0)
@@ -104,7 +103,7 @@ def test_dist_sssp_min_monoid(mesh):
 
 def test_dist_sgd_three_operand(mesh):
     """ALL_EDGES + receiver-vertexprop gather (row broadcast path)."""
-    from graphmat_tpu import load_edgelist
+    from graphmat import load_edgelist
     e = load_edgelist("data/ratings7.bin.mtx")
     lv1, r0_1, r1_1 = run_sgd(Graph(e), k=8, iterations=5)
 
@@ -116,7 +115,7 @@ def test_dist_sgd_three_operand(mesh):
 
 
 def init_dist_sgd(g: DistGraph, k: int):
-    from graphmat_tpu.utils.reference_rng import rand_r_uniform_np
+    from graphmat.utils.reference_rng import rand_r_uniform_np
     seeds = np.arange(1, g.n + 1, dtype=np.uint32)
     lv = rand_r_uniform_np(seeds, k).astype(np.float32)
     g.init_vertexproperty(lv=lv, sqerr=np.float32(0))
@@ -125,8 +124,7 @@ def init_dist_sgd(g: DistGraph, k: int):
 def test_dist_lda_state_psum(mesh):
     """do_every_iteration's global reduce must psum across the mesh."""
     import jax.numpy as jnp
-    from graphmat_tpu.apps.lda import (LDAInitProgram, LDAProgram,
-                                       _global_topic_totals)
+    from graphmat.apps.lda import LDAInitProgram, LDAProgram
     from test_ml_apps import bipartite_edges, lda_oracle
     ndoc, nterms, k = 5, 7, 4
     e = bipartite_edges(ndoc, nterms, seed=31)
@@ -160,130 +158,11 @@ def test_dist_chain_convergence_loop(mesh):
     np.testing.assert_array_equal(g.vp_numpy()["depth"], np.arange(n))
 
 
-def test_dist_pallas_pagerank_matches_xla(mesh):
-    """Sharded engine with per-tile Pallas kernels (interpret on CPU)."""
-    e = random_edgelist(100, 5, seed=17)
-    pr_ref, it_ref = dist_pagerank(e, mesh)
-
-    g = DistGraph(e, mesh)
-    g.init_vertexproperty(pagerank=np.float32(0.3), degree=np.int32(0))
-    g.set_all_active()
-    DistEngine(DegreeProgram(), g, use_pallas=True).run(iterations=1)
-    it2 = DistEngine(PageRankProgram(), g, use_pallas=True).run()
-    pr2 = g.vp_numpy()["pagerank"]
-    # PageRank's 2-split scatter carries 2^-17 relative error per sum, so
-    # the 1e-5 convergence check may land a few iterations apart (the
-    # reference's own float reduce order is nondeterministic across ranks;
-    # SURVEY.md §7 "match to tolerance").  Values must still agree.
-    assert abs(it2 - it_ref) <= 6
-    np.testing.assert_allclose(pr2, pr_ref, rtol=5e-5, atol=5e-5)
-
-
-def test_dist_pallas_bfs_matches_xla(mesh):
-    e = random_edgelist(90, 3, seed=23)
-    g1 = DistGraph(e, mesh, build_in_edges=False)
-    init_dist_bfs(g1, 1)
-    it1 = DistEngine(BFSProgram(), g1, use_pallas=False).run()
-    ref = g1.vp_numpy()
-
-    g2 = DistGraph(e, mesh, build_in_edges=False)
-    init_dist_bfs(g2, 1)
-    it2 = DistEngine(BFSProgram(), g2, use_pallas=True).run()
-    out = g2.vp_numpy()
-    assert it1 == it2
-    np.testing.assert_array_equal(out["depth"], ref["depth"])
-    np.testing.assert_array_equal(out["parent"], ref["parent"])
-
-
-def test_dist_pallas_compacted_tiles_match_xla(mesh, monkeypatch):
-    """Per-tile hypersparse compaction on the mesh (the DCSC analog,
-    VERDICT r3 missing #1): GRAPHMAT_DIST_COMPACT=1 forces every tile's
-    straggler cells through per-super-block compact operand regions —
-    at test scale every non-hub cell is below divert_min, so this
-    exercises heavily-diverted plans, padded aux stacks (tile aux sizes
-    differ), and the virtual-row activity fallback inside shard_map.
-    Results must be bit-identical to the XLA path."""
-    monkeypatch.setenv("GRAPHMAT_DIST_COMPACT", "1")
-    # the per-tile sender space (n_pad / C) must exceed the hub cutoff
-    # (2048) or nothing can divert (hub senders read the VMEM head
-    # mirror, never the window path) — 12000 vertices gives R*S ≈ 3000
-    e = random_edgelist(12000, 3, seed=31)
-
-    # min kernel + frontier (BFS)
-    g1 = DistGraph(e, mesh, build_in_edges=False)
-    init_dist_bfs(g1, 1)
-    it1 = DistEngine(BFSProgram(), g1, use_pallas=False).run()
-    ref = g1.vp_numpy()
-    g2 = DistGraph(e, mesh, build_in_edges=False)
-    assert g2.pallas_tile_plans2u("dst")[1][9] is not None, \
-        "forced dist compaction built no aux plans"
-    init_dist_bfs(g2, 1)
-    it2 = DistEngine(BFSProgram(), g2, use_pallas=True).run()
-    out = g2.vp_numpy()
-    assert it1 == it2
-    np.testing.assert_array_equal(out["depth"], ref["depth"])
-    np.testing.assert_array_equal(out["parent"], ref["parent"])
-
-    # sum kernel, dense (PageRank) — bit-level f32 path incl. want_got
-    pr_ref, it_ref = dist_pagerank(e, mesh)
-    g3 = DistGraph(e, mesh)
-    g3.init_vertexproperty(pagerank=np.float32(0.3), degree=np.int32(0))
-    g3.set_all_active()
-    DistEngine(DegreeProgram(), g3, use_pallas=True).run(iterations=1)
-    it3 = DistEngine(PageRankProgram(), g3, use_pallas=True).run()
-    pr3 = g3.vp_numpy()["pagerank"]
-    assert abs(it3 - it_ref) <= 6
-    np.testing.assert_allclose(pr3, pr_ref, rtol=5e-5, atol=5e-5)
-
-    # min kernel WITH the edge-value stream (SSSP) — vals must divert
-    # alongside their senders
-    rng = np.random.default_rng(5)
-    from graphmat_tpu.apps.sssp import INF_DIST
-    from graphmat_tpu.io.edgelist import EdgeList
-    w = rng.integers(1, 9, len(e.src)).astype(np.float64)
-    ew = EdgeList(src=e.src, dst=e.dst, val=w, m=e.m, n=e.n)
-    d_ref, _ = run_sssp(Graph(ew, build_in_edges=False), 1)
-    g4 = DistGraph(ew, mesh, build_in_edges=False)
-    g4.init_vertexproperty(distance=np.int32(INF_DIST))
-    g4.set_all_inactive()
-    g4.set_vertexproperty(1, distance=0)
-    g4.set_active(1)
-    DistEngine(SSSPProgram(), g4, use_pallas=True).run()
-    np.testing.assert_array_equal(g4.vp_numpy()["distance"], d_ref)
-
-
-def test_dist_vec2_k40_matches_xla(mesh):
-    """K=40 SGD runs the vec2 K-plane path ON THE MESH (round 5: the
-    K>32 cliff to the v1 kernel is gone — ceil(K/32) 32-lane planes
-    share one tile plan inside one kernel invocation)."""
-    from graphmat_tpu.apps.sgd import SGDProgram, init_sgd_graph
-    from graphmat_tpu.utils.reference_rng import rand_r_uniform_np
-
-    k = 40
-    e = random_edgelist(48, 3, seed=31, weight_range=5)
-
-    def run(force_vec2):
-        g = DistGraph(e, mesh, seg_align=8)
-        lv = rand_r_uniform_np(
-            np.arange(1, g.n + 1, dtype=np.uint32), k).astype(np.float32)
-        g.init_vertexproperty(lv=lv, sqerr=np.float32(0))
-        prog = SGDProgram(step=0.001, k=k)
-        assert prog.pallas_vec2_semiring() is not None
-        eng = DistEngine(prog, g, use_pallas=force_vec2)
-        if force_vec2:
-            assert eng.use_pallas_vec2
-        eng.run(iterations=2)
-        return g.vp_numpy()["lv"]
-
-    np.testing.assert_allclose(run(True), run(False), rtol=2e-4,
-                               atol=2e-5)
-
-
 def test_multihost_helpers_single_process(tmp_path):
     """Single-process behavior of the multi-host scaffolding."""
-    from graphmat_tpu.io.edgelist import write_edgelist
-    from graphmat_tpu.parallel.multihost import (initialize,
-                                                 load_edgelist_sharded)
+    from graphmat.io.edgelist import write_edgelist
+    from graphmat.parallel.multihost import (initialize,
+                                             load_edgelist_sharded)
     initialize()  # no-op single process
     e = random_edgelist(40, 4, seed=3)
     prefix = str(tmp_path / "shard")
@@ -307,10 +186,10 @@ def test_dist_degree_permute(mesh):
 
 
 def test_dist_lda_permuted(mesh):
-    """LDA on a degree-permuted DistGraph matches the oracle (the vec2
-    tile kernels read is_doc from the encoded vp lane, not the id)."""
+    """LDA on a degree-permuted DistGraph matches the oracle (is_doc is
+    a vertex property, so the doc/term split survives the relabeling)."""
     import jax.numpy as jnp
-    from graphmat_tpu.apps.lda import run_lda
+    from graphmat.apps.lda import run_lda
     from test_ml_apps import bipartite_edges, lda_oracle
     ndoc, nterms, k = 6, 9, 4
     e = bipartite_edges(ndoc, nterms, seed=11)
@@ -325,7 +204,7 @@ def test_dist_auto_permute_bounds_tile_skew(mesh):
     """Power-law default (segment-strided degree permute): tile edge
     counts stay within 2x the mean, so one hub tile no longer sets the
     padded memory of all R*C tiles."""
-    from graphmat_tpu.utils.generators import rmat_edgelist
+    from graphmat.utils.generators import rmat_edgelist
     e = rmat_edgelist(11, 8, seed=3)
     g = DistGraph(e, mesh)                     # permute="auto" default
     assert g.perm is not None, "skewed RMAT should trigger the permute"
@@ -338,8 +217,8 @@ def test_dist_auto_permute_bounds_tile_skew(mesh):
                     float)
     assert cnt0.max() > 2.0 * cnt0.mean()
     # results match the single-device engine through the permute
-    from graphmat_tpu import Graph
-    from graphmat_tpu.apps.pagerank import run_pagerank
+    from graphmat import Graph
+    from graphmat.apps.pagerank import run_pagerank
     pr_d, it_d = run_pagerank(g)
     pr_s, it_s = run_pagerank(Graph(e))
     np.testing.assert_allclose(np.asarray(pr_d), np.asarray(pr_s),

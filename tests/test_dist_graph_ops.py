@@ -10,12 +10,12 @@ import pytest
 
 import jax
 
-from graphmat_tpu.parallel.dist_graph import DistGraph
-from graphmat_tpu.parallel.dist_graph_ops import (apply_reduce_all_vertices,
-                                                  apply_to_all_edges,
-                                                  apply_to_all_vertices)
-from graphmat_tpu.parallel.mesh import make_mesh
-from graphmat_tpu.utils.generators import random_edgelist
+from graphmat.parallel.dist_graph import DistGraph
+from graphmat.parallel.dist_graph_ops import (apply_reduce_all_vertices,
+                                              apply_to_all_edges,
+                                              apply_to_all_vertices)
+from graphmat.parallel.mesh import make_mesh
+from graphmat.utils.generators import random_edgelist
 
 
 @pytest.fixture(scope="module")
@@ -108,8 +108,8 @@ def test_dist_share_vertex_property(mesh):
 def test_dist_delta_stepping_matches_dijkstra(mesh):
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import dijkstra
-    from graphmat_tpu.apps.delta_stepping import (INF_DIST,
-                                                  run_delta_stepping_dist)
+    from graphmat.apps.delta_stepping import (INF_DIST,
+                                              run_delta_stepping_dist)
     e = random_edgelist(50, 4, seed=11, weight_range=9)
     dist, _ = run_delta_stepping_dist(e, 3, 1, mesh, seg_align=8)
     n = max(e.m, e.n)
@@ -121,9 +121,9 @@ def test_dist_delta_stepping_matches_dijkstra(mesh):
 
 def test_dist_toposort_via_polymorphic_runner(mesh):
     """run_topological_sort works unchanged on a DistGraph (engine_for)."""
-    from graphmat_tpu.apps.topological_sort import run_topological_sort
-    from graphmat_tpu.utils.generators import upper_triangular_edgelist
-    from graphmat_tpu.core.graph import Graph
+    from graphmat.apps.topological_sort import run_topological_sort
+    from graphmat.utils.generators import upper_triangular_edgelist
+    from graphmat.core.graph import Graph
     e = upper_triangular_edgelist(20)
     g = DistGraph(e, mesh, seg_align=8)
     order_d, cyc_d, _ = run_topological_sort(g)
@@ -134,9 +134,9 @@ def test_dist_toposort_via_polymorphic_runner(mesh):
 
 
 def test_dist_incremental_pagerank_runner(mesh):
-    from graphmat_tpu.apps.incremental_pagerank import run_incremental_pagerank
-    from graphmat_tpu.apps.pagerank import run_pagerank
-    from graphmat_tpu.core.graph import Graph
+    from graphmat.apps.incremental_pagerank import run_incremental_pagerank
+    from graphmat.apps.pagerank import run_pagerank
+    from graphmat.core.graph import Graph
     e = random_edgelist(50, 4, seed=2)
     pr, _ = run_pagerank(Graph(e))
     g = DistGraph(e, mesh, seg_align=8)
@@ -149,7 +149,7 @@ def test_dist_incremental_pagerank_runner(mesh):
 def test_dist_connected_components_runner(mesh):
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components as scipy_cc
-    from graphmat_tpu.apps.connected_components import \
+    from graphmat.apps.connected_components import \
         run_connected_components
     e = random_edgelist(40, 2, seed=8)
     g = DistGraph(e, mesh, seg_align=8)

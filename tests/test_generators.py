@@ -8,12 +8,12 @@ dedup, id range, determinism per seed, power-law degree skew.
 import numpy as np
 import pytest
 
-from graphmat_tpu.native import native_available
-from graphmat_tpu.utils.generators import (chain_edgelist,
-                                           circular_chain_edgelist,
-                                           dense_edgelist, identity_edgelist,
-                                           rmat_edgelist,
-                                           upper_triangular_edgelist)
+from graphmat.native import native_available
+from graphmat.utils.generators import (chain_edgelist,
+                                       circular_chain_edgelist,
+                                       dense_edgelist, identity_edgelist,
+                                       rmat_edgelist,
+                                       upper_triangular_edgelist)
 
 
 def test_fixture_shapes():
@@ -61,7 +61,7 @@ def test_rmat_clustering(native):
     degrees: an a-dominant RMAT at scale 10 has tens of thousands of
     triangles where a same-size uniform graph has ~a hundred (the
     quadrant-swap bug measured 1.5K at EVERY scale)."""
-    from graphmat_tpu.ops.triangles import count_triangles_bucketed
+    from graphmat.ops.triangles import count_triangles_bucketed
     e = rmat_edgelist(10, 8, seed=1, native=native)
     s0 = (e.src - 1).astype(np.int64)
     r0 = (e.dst - 1).astype(np.int64)

@@ -7,11 +7,11 @@ messages reduced by concat.  Here the facility is
 import jax.numpy as jnp
 import numpy as np
 
-from graphmat_tpu import Graph
-from graphmat_tpu.apps.get_neighbors import (GetNeighborsProgram, PAD_ID,
-                                             run_get_neighbors)
-from graphmat_tpu.io.edgelist import edgelist_from_arrays
-from graphmat_tpu.utils.generators import random_edgelist
+from graphmat import Graph
+from graphmat.apps.get_neighbors import (GetNeighborsProgram, PAD_ID,
+                                         run_get_neighbors)
+from graphmat.io.edgelist import edgelist_from_arrays
+from graphmat.utils.generators import random_edgelist
 
 
 def dense_edgelist(n):
@@ -60,8 +60,8 @@ def test_get_neighbors_permuted_graph():
 
 def test_get_neighbors_dist_matches_single():
     import jax
-    from graphmat_tpu.parallel.dist_graph import DistGraph
-    from graphmat_tpu.parallel.mesh import make_mesh
+    from graphmat.parallel.dist_graph import DistGraph
+    from graphmat.parallel.mesh import make_mesh
     e = random_edgelist(96, 4, seed=9)
     g1 = Graph(e)
     nb1 = run_get_neighbors(g1)
@@ -78,9 +78,9 @@ def test_get_neighbors_dist_matches_single():
 def test_vector_message_active_only_frontier():
     """A user-writable vector-message program under ACTIVE_ONLY: only
     ACTIVE senders' contributions appear in the collected rows."""
-    from graphmat_tpu.core.program import GraphProgram
-    from graphmat_tpu.core.runtime import Engine
-    from graphmat_tpu.core.types import Activity, Direction
+    from graphmat.core.program import GraphProgram
+    from graphmat.core.runtime import Engine
+    from graphmat.core.types import Activity, Direction
 
     class CollectActive(GetNeighborsProgram):
         activity = Activity.ACTIVE_ONLY
@@ -113,8 +113,8 @@ def test_vector_message_active_only_frontier():
 
 def test_vector_message_all_edges_concat():
     """ALL_EDGES: both directions' contributions concat into one row."""
-    from graphmat_tpu.core.runtime import Engine
-    from graphmat_tpu.core.types import Direction
+    from graphmat.core.runtime import Engine
+    from graphmat.core.types import Direction
 
     class AllNeighbors(GetNeighborsProgram):
         order = Direction.ALL_EDGES

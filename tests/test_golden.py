@@ -54,7 +54,7 @@ def fixture(name):
 
 def test_pagerank_matches_reference_binary():
     ref = gold("pagerank_test.txt")
-    ours = run_cli("graphmat_tpu.apps.pagerank", [fixture("test.bin.mtx")])
+    ours = run_cli("graphmat.apps.pagerank", [fixture("test.bin.mtx")])
     ref_vals = {int(m[0]): (int(m[1]), float(m[2])) for m in re.findall(
         r"^(\d+) : (\d+) ([\d.]+)$", ref, re.M)}
     our_vals = {int(m[0]): float(m[1]) for m in re.findall(
@@ -69,7 +69,7 @@ def test_pagerank_matches_reference_binary():
 
 def test_bfs_matches_reference_binary():
     ref = gold("bfs_test_s1.txt")
-    ours = run_cli("graphmat_tpu.apps.bfs", [fixture("test.bin.mtx"), "1"])
+    ours = run_cli("graphmat.apps.bfs", [fixture("test.bin.mtx"), "1"])
     ref_d = {int(m[0]): int(m[1]) for m in re.findall(
         r"^Depth (\d+) : (\d+) parent", ref, re.M)}
     our = {int(m[0]): (int(m[1]), int(m[2])) for m in re.findall(
@@ -79,7 +79,7 @@ def test_bfs_matches_reference_binary():
     assert "Reachable vertices = 8" in ours
     # parents: overwrite-reduce is nondeterministic in the reference, so
     # require tree-validity (parent at depth-1 with a real edge) instead
-    import graphmat_tpu as gm
+    import graphmat as gm
     e = gm.load_edgelist(fixture("test.bin.mtx"))
     edges = set(zip(e.src.tolist(), e.dst.tolist()))
     for v, (d, p) in our.items():
@@ -91,14 +91,14 @@ def test_bfs_matches_reference_binary():
 
 def test_sssp_matches_reference_binary():
     ref = gold("sssp_test_s1.txt")
-    ours = run_cli("graphmat_tpu.apps.sssp", [fixture("test.bin.mtx"), "1"])
+    ours = run_cli("graphmat.apps.sssp", [fixture("test.bin.mtx"), "1"])
     pat = r"^(\d+) : distance = (\d+)$"
     assert re.findall(pat, ref, re.M) == re.findall(pat, ours, re.M)
 
 
 def test_toposort_matches_reference_binary():
     ref = gold("toposort_2_10.txt")
-    ours = run_cli("graphmat_tpu.apps.topological_sort",
+    ours = run_cli("graphmat.apps.topological_sort",
                    [fixture("2_10_upper_triangle.bin.mtx")])
     pat = r"^Top Sort order (\d+) : (\d+)$"
     assert re.findall(pat, ref, re.M) == re.findall(pat, ours, re.M)
@@ -106,7 +106,7 @@ def test_toposort_matches_reference_binary():
 
 def test_triangle_counting_matches_reference_binary():
     ref = gold("tc_2_10.txt")
-    ours = run_cli("graphmat_tpu.apps.triangle_counting",
+    ours = run_cli("graphmat.apps.triangle_counting",
                    [fixture("2_10_upper_triangle.bin.mtx")])
     m = re.search(r"Total triangles = (\d+)", ref)
     assert m and f"Total triangles = {m[1]}" in ours
@@ -114,7 +114,7 @@ def test_triangle_counting_matches_reference_binary():
 
 def test_incremental_pagerank_matches_reference_binary():
     ref = gold("incpr_test.txt")
-    ours = run_cli("graphmat_tpu.apps.incremental_pagerank",
+    ours = run_cli("graphmat.apps.incremental_pagerank",
                    [fixture("test.bin.mtx")])
     ref_vals = {int(m[0]): float(m[2]) for m in re.findall(
         r"^(\d+) : (\d+) ([\d.]+)$", ref, re.M)}
@@ -129,7 +129,7 @@ def test_incremental_pagerank_matches_reference_binary():
 
 def test_delta_stepping_matches_reference_binary():
     ref = gold("deltastepping_test_d3_s1.txt")
-    ours = run_cli("graphmat_tpu.apps.delta_stepping",
+    ours = run_cli("graphmat.apps.delta_stepping",
                    [fixture("test.bin.mtx"), "3", "1"])
     pat = r"^(\d+) : distance = (\d+)$"
     assert re.findall(pat, ref, re.M) == re.findall(pat, ours, re.M)
@@ -139,7 +139,7 @@ def test_delta_stepping_matches_reference_binary():
 
 def test_sgd_matches_reference_binary():
     ref = gold("sgd_ratings7.txt")
-    ours = run_cli("graphmat_tpu.apps.sgd", [fixture("ratings7.bin.mtx")])
+    ours = run_cli("graphmat.apps.sgd", [fixture("ratings7.bin.mtx")])
     ref_rmse = [float(x) for x in re.findall(
         r"RMSE error = ([\d.]+) per edge", ref)]
     our_rmse = [float(x) for x in re.findall(
@@ -158,7 +158,7 @@ def test_sgd_matches_reference_binary():
 
 def test_lda_matches_reference_binary():
     ref = gold("lda_ratings7.txt")
-    ours = run_cli("graphmat_tpu.apps.lda",
+    ours = run_cli("graphmat.apps.lda",
                    [fixture("ratings7.bin.mtx"), "3", "4", "10"])
     m = re.search(r"Total Loglikelihood = (-?[\d.]+)", ref)
     mo = re.search(r"Total Loglikelihood = (-?[\d.]+)", ours)

@@ -5,10 +5,10 @@ set/get)."""
 import numpy as np
 import pytest
 
-from graphmat_tpu import Graph, load_edgelist
-from graphmat_tpu.utils.generators import (chain_edgelist, dense_edgelist,
-                                           identity_edgelist, random_edgelist,
-                                           upper_triangular_edgelist)
+from graphmat import Graph, load_edgelist
+from graphmat.utils.generators import (chain_edgelist, dense_edgelist,
+                                       identity_edgelist, random_edgelist,
+                                       upper_triangular_edgelist)
 
 
 @pytest.mark.parametrize("gen", [
@@ -76,7 +76,7 @@ def test_share_vertex_property_rejects_mismatched_perm():
     """Two permute='degree' graphs over different edge subsets derive
     different permutations — sharing must fail loudly, and succeed when
     the second graph reuses the first one's perm (ADVICE r3)."""
-    from graphmat_tpu.io.edgelist import EdgeList
+    from graphmat.io.edgelist import EdgeList
     e = random_edgelist(60, 4, seed=42)
     half = EdgeList(src=e.src[::2], dst=e.dst[::2],
                     val=e.val[::2] if e.val is not None else None,
@@ -97,7 +97,7 @@ def test_share_vertex_property_rejects_mismatched_perm():
 @pytest.mark.parametrize("mode", ["degree", True])
 def test_vertex_permutation_transparent(mode):
     """Graph(permute=...) must be invisible through the public API."""
-    from graphmat_tpu.apps.pagerank import run_pagerank
+    from graphmat.apps.pagerank import run_pagerank
     e = random_edgelist(60, 4, seed=41)
     g0 = Graph(e)
     pr0, it0 = run_pagerank(g0)
@@ -111,7 +111,7 @@ def test_vertex_permutation_transparent(mode):
 
 
 def test_vertex_permutation_bfs_source():
-    from graphmat_tpu.apps.bfs import run_bfs
+    from graphmat.apps.bfs import run_bfs
     e = random_edgelist(50, 3, seed=43)
     d0, p0, _ = run_bfs(Graph(e, build_in_edges=False), 5)
     d1, p1, _ = run_bfs(Graph(e, build_in_edges=False, permute="degree"), 5)

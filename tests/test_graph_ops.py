@@ -4,11 +4,11 @@ mirrors ``test/test_apply_edges.cpp`` (val == src + s*dst invariant)."""
 import jax.numpy as jnp
 import numpy as np
 
-from graphmat_tpu import Graph
-from graphmat_tpu.core.graph_ops import (apply_reduce_all_vertices,
-                                         apply_to_all_edges,
-                                         apply_to_all_vertices)
-from graphmat_tpu.utils.generators import random_edgelist
+from graphmat import Graph
+from graphmat.core.graph_ops import (apply_reduce_all_vertices,
+                                     apply_to_all_edges,
+                                     apply_to_all_vertices)
+from graphmat.utils.generators import random_edgelist
 
 
 def make_graph(n=40, deg=4, seed=5):
@@ -39,7 +39,7 @@ def test_apply_reduce_generic_combine():
     """Arbitrary user reduce fns (MapReduce parity,
     multinode/reduce.h:39-74): bare callable, generic Monoid, and a pytree
     mixing fast-path kinds with a callable."""
-    from graphmat_tpu.core.types import Monoid
+    from graphmat.core.types import Monoid
     g, e = make_graph()
     # product of values 1..40 mod nothing — use float64-safe logsum instead
     out = apply_reduce_all_vertices(
@@ -62,10 +62,10 @@ def test_apply_reduce_generic_combine():
 def test_apply_reduce_generic_dist():
     """Dist MapReduce accepts the same generic reduce specs."""
     import jax
-    from graphmat_tpu.parallel.dist_graph import DistGraph
-    from graphmat_tpu.parallel.dist_graph_ops import (
-        apply_reduce_all_vertices as dist_reduce)
-    from graphmat_tpu.parallel.mesh import make_mesh
+    from graphmat.parallel.dist_graph import DistGraph
+    from graphmat.parallel.dist_graph_ops import (
+                                                  apply_reduce_all_vertices as dist_reduce)
+    from graphmat.parallel.mesh import make_mesh
     e = random_edgelist(40, 4, seed=5)
     mesh = make_mesh(jax.devices()[:8], (2, 4))
     g = DistGraph(e, mesh, seg_align=8)
@@ -97,105 +97,3 @@ def test_apply_to_all_edges_src_plus_s_dst():
     vals = np.asarray(ea.vals)[valid]
     for s, d, v in zip(srcs, dsts, vals):
         assert v == s + 5 * d
-
-
-def test_apply_edges_invalidates_plans():
-    g, e = make_graph()
-    p1 = g.pallas_plan("dst")
-    apply_to_all_edges(g, lambda vs, vd, val: val + 1)
-    p2 = g.pallas_plan("dst")
-    assert p1 is not p2
-    # plan values reflect the updated edges
-    assert float(jnp.sum(p2.vals)) == float(jnp.sum(p1.vals)) + e.nnz
-
-
-def test_apply_edges_patches_v2_plans_in_place():
-    """v2/v2m plans carry an eidx map, so applyToAllEdges refreshes ONLY
-    the val plane — no replan of routing/coloring (reference: in-place
-    mutate, singlenode/applyedges.h:38-95) — and SpMV through the patched
-    plan matches the oracle on the new values."""
-    import scipy.sparse as sp
-    from graphmat_tpu.ops.pallas_spmv2 import spmv2, spmv2m
-    g, e = make_graph(n=300, deg=8, seed=9)
-    p2 = g.pallas_plan2("dst")
-    p2m = g.pallas_plan2m("dst")
-    pk_before = p2.pk
-    apply_to_all_edges(g, lambda vs, vd, val: vs["val"] + 5 * vd["val"])
-    assert g.pallas_plan2("dst") is p2          # same plan object
-    assert g.pallas_plan2m("dst") is p2m
-    assert g.pallas_plan2("dst").pk is pk_before  # structure untouched
-    # oracle on the updated values
-    out = g.get_edges()
-    s0, r0 = out.src - 1, out.dst - 1
-    vexp = (s0 + 1) + 5 * (r0 + 1)
-    x = np.arange(1, g.n_pad + 1, dtype=np.float32)
-    y = np.asarray(spmv2(p2, jnp.asarray(
-        np.pad(x, (0, p2.n_send_pad - g.n_pad))), "sum",
-        process=lambda xv, ev: xv * ev, interpret=True))
-    ref = sp.csr_matrix((vexp.astype(np.float64), (r0, s0)),
-                        shape=(g.n_pad, g.n_pad)) @ x.astype(np.float64)
-    assert np.allclose(y[: g.n_pad], ref, rtol=2e-6, atol=1e-4)
-    ym = np.asarray(spmv2m(p2m, jnp.asarray(
-        np.pad(x, (0, p2m.n_send_pad - g.n_pad))), "min",
-        process=lambda xv, ev: xv + ev, interpret=True))
-    refm = np.full(g.n_pad, np.inf)
-    np.minimum.at(refm, r0, x[s0] + vexp)
-    got = np.isfinite(refm)
-    assert np.allclose(ym[: g.n_pad][got], refm[got], rtol=1e-6)
-
-
-def test_apply_edges_patches_dist_plans_in_place():
-    import jax
-    from graphmat_tpu.parallel.dist_graph import DistGraph
-    from graphmat_tpu.parallel.dist_graph_ops import (
-        apply_to_all_edges as dist_apply_edges)
-    from graphmat_tpu.parallel.mesh import make_mesh
-    e = random_edgelist(64, 4, seed=11)
-    mesh = make_mesh(jax.devices()[:4], (2, 2))
-    g = DistGraph(e, mesh, seg_align=8)
-    g.init_vertexproperty(val=np.arange(1, 65, dtype=np.int32))
-    entry1 = g.pallas_tile_plans2("dst")
-    dist_apply_edges(g, lambda vs, vd, val: vs["val"] + 5 * vd["val"])
-    entry2 = g.pallas_tile_plans2("dst")
-    # same pk plane object (no replan); val plane replaced
-    assert entry2[0][5] is entry1[0][5]
-    tiles = g._host_tiles["dst"]
-    tot = sum(float(np.sum(v)) for (_s, _r, v) in tiles)
-    val_plane_sum = float(np.sum(np.asarray(entry2[0][6])))
-    assert np.isclose(val_plane_sum, tot, rtol=1e-5)
-
-
-def test_apply_edges_refreshes_segmented_v2u_plan():
-    """applyToAllEdges must dispatch v2u plans to refresh_plan2u_vals:
-    on a GRID-SEGMENTED plan (nc > NC_SEG, the RMAT-23 class) pk/po/val
-    are per-segment tuples — writing one monolithic val array (the
-    v2/v2m refresh) would crash the next _spmv2u_call."""
-    import scipy.sparse as sp
-    from graphmat_tpu.ops.pallas_spmv2u import (_apply_splits,
-                                                _compute_splits, spmv2u)
-    g, e = make_graph(n=900, deg=12, seed=17)
-    plan = g.pallas_plan2u("dst", wr=256)
-    # force segmentation the way the SMEM budget would at scale
-    plan.splits = _compute_splits(np.asarray(plan.blkid), plan.nb,
-                                  nc_seg=max(plan.nc // 3, 2))
-    assert len(plan.splits) >= 2
-    _apply_splits(plan)
-    assert isinstance(plan.pk, tuple)
-    apply_to_all_edges(g, lambda vs, vd, val: vs["val"] + 5 * vd["val"])
-    # still the same (segmented) plan object, val stays a matching tuple
-    assert g._pallas_plans[("v2u", "dst", 256, 128)] is plan
-    assert isinstance(plan.val, tuple) and len(plan.val) == len(plan.pk)
-    for vk, pkk in zip(plan.val, plan.pk):
-        assert vk.shape == pkk.shape
-    # SpMV through the refreshed segmented plan matches the oracle
-    out = g.get_edges()
-    s0, r0 = out.src - 1, out.dst - 1
-    vexp = (s0 + 1) + 5 * (r0 + 1)
-    x = np.arange(1, g.n_pad + 1, dtype=np.float32)
-    xp = np.pad(x, (0, plan.n_send_pad - g.n_pad))
-    y = np.asarray(spmv2u(plan, jnp.asarray(xp), "sum",
-                          process=lambda xv, ev: xv * ev,
-                          interpret=True))
-    ref = sp.csr_matrix((vexp.astype(np.float64), (r0, s0)),
-                        shape=(g.n_pad, g.n_pad)) @ x.astype(np.float64)
-    assert np.allclose(y[: g.n_pad], ref, rtol=2e-6, atol=1e-4)

@@ -5,8 +5,8 @@ checks against the shipped GraphMat data files."""
 import numpy as np
 import pytest
 
-from graphmat_tpu.io.edgelist import (EdgeList, edgelist_from_arrays,
-                                      load_edgelist, write_edgelist)
+from graphmat.io.edgelist import (EdgeList, edgelist_from_arrays,
+                                  load_edgelist, write_edgelist)
 
 DATA = "data"
 
@@ -92,9 +92,9 @@ def test_load_missing_raises(tmp_path):
 def test_app_cli_mains_smoke(capsys):
     """Every app CLI entry point runs on the fixtures (reference binary
     parity)."""
-    from graphmat_tpu.apps import (bfs, delta_stepping, incremental_pagerank,
-                                   pagerank, sgd, sssp, topological_sort,
-                                   triangle_counting)
+    from graphmat.apps import (bfs, delta_stepping, incremental_pagerank,
+                               pagerank, sgd, sssp, topological_sort,
+                               triangle_counting)
     assert pagerank._main(["data/test.bin.mtx"]) == 0
     assert bfs._main(["data/test.bin.mtx", "1"]) == 0
     assert sssp._main(["data/test.bin.mtx", "1"]) == 0

@@ -7,16 +7,16 @@ Oracles: per-edge numpy reimplementations of the reference math
 import numpy as np
 import pytest
 
-from graphmat_tpu import Graph, load_edgelist
-from graphmat_tpu.apps.incremental_pagerank import run_incremental_pagerank
-from graphmat_tpu.apps.pagerank import run_pagerank
-from graphmat_tpu.apps.sgd import run_sgd
-from graphmat_tpu.apps.lda import run_lda
-from graphmat_tpu.apps.triangle_counting import run_triangle_counting
-from graphmat_tpu.io.transforms import convert_to_upper_triangular
-from graphmat_tpu.utils.generators import random_edgelist, \
+from graphmat import Graph, load_edgelist
+from graphmat.apps.incremental_pagerank import run_incremental_pagerank
+from graphmat.apps.pagerank import run_pagerank
+from graphmat.apps.sgd import run_sgd
+from graphmat.apps.lda import run_lda
+from graphmat.apps.triangle_counting import run_triangle_counting
+from graphmat.io.transforms import convert_to_upper_triangular
+from graphmat.utils.generators import random_edgelist, \
     upper_triangular_edgelist
-from graphmat_tpu.utils.reference_rng import rand_r_uniform_np
+from graphmat.utils.reference_rng import rand_r_uniform_np
 
 
 # ------------------------------------------------------------ rand_r
@@ -31,7 +31,7 @@ def test_rand_r_matches_glibc_vectors():
 
 def test_rand_r_jnp_matches_np():
     import jax.numpy as jnp
-    from graphmat_tpu.utils.reference_rng import rand_r_jnp
+    from graphmat.utils.reference_rng import rand_r_jnp
     seeds = np.array([1, 2, 3, 12345], np.uint32)
     a = rand_r_uniform_np(seeds, 5, np.float32)
     b = np.asarray(rand_r_jnp(jnp.asarray(seeds), 5))
@@ -126,7 +126,7 @@ def bipartite_edges(ndoc, nterms, seed=0, maxcount=5):
             src.append(d)
             dst.append(ndoc + 1 + int(t))
             val.append(int(rng.integers(1, maxcount + 1)))
-    from graphmat_tpu import edgelist_from_arrays
+    from graphmat import edgelist_from_arrays
     n = ndoc + nterms
     return edgelist_from_arrays(src, dst, val, m=n, n=n)
 
@@ -202,101 +202,9 @@ def test_incremental_pagerank_close_to_pagerank():
     assert niter > 0
 
 
-def test_sgd_vec2_engine_matches_xla():
-    """v2 K-wide kernel through the engine (interpret) vs XLA path."""
-    from graphmat_tpu.core.runtime import Engine
-    from graphmat_tpu.apps.sgd import SGDProgram, init_sgd_graph
-    rng = np.random.default_rng(11)
-    n, e = 400, 3000
-    src = rng.integers(1, n + 1, e)
-    dst = rng.integers(1, n + 1, e)
-    val = rng.integers(1, 6, e).astype(np.float64)
-    from graphmat_tpu.io.edgelist import edgelist_from_arrays
-    el = edgelist_from_arrays(src, dst, val, m=n, n=n)
-
-    g1 = Graph(el)
-    init_sgd_graph(g1, k=8)
-    Engine(SGDProgram(k=8), g1, use_pallas=False).run(iterations=3)
-    ref = g1.vp_numpy()["lv"]
-
-    g2 = Graph(el)
-    init_sgd_graph(g2, k=8)
-    eng = Engine(SGDProgram(k=8), g2, use_pallas=True)
-    assert eng.use_pallas_vec2
-    eng.run(iterations=3)
-    out = g2.vp_numpy()["lv"]
-    np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-5)
-
-
-def test_lda_vec2_engine_matches_xla():
-    from graphmat_tpu.core.runtime import Engine
-    from graphmat_tpu.apps.lda import (LDAInitProgram, LDAProgram,
-                                       _global_topic_totals)
-    from graphmat_tpu.core.program import IterationContext
-    from graphmat_tpu.io.edgelist import edgelist_from_arrays
-    rng = np.random.default_rng(13)
-    ndoc, nterm, e, K = 120, 200, 1500, 8
-    n = ndoc + nterm
-    d = rng.integers(1, ndoc + 1, e)
-    t = ndoc + rng.integers(1, nterm + 1, e)
-    val = rng.integers(1, 5, e).astype(np.float64)
-    el = edgelist_from_arrays(np.r_[d, t], np.r_[t, d],
-                              np.r_[val, val], m=n, n=n)
-
-    def run(use_pallas):
-        g = Graph(el)
-        is_doc = np.zeros(n, bool); is_doc[:ndoc] = True
-        g.init_vertexproperty(N=np.zeros((n, K), np.float32),
-                              is_doc=is_doc)
-        g.set_all_active()
-        Engine(LDAInitProgram(k=K), g, use_pallas=use_pallas).run(
-            iterations=1)
-        gn = np.asarray(g.vp["N"])[ndoc:n].sum(axis=0)
-        prog = LDAProgram(K, 1.0, 5.0, vocab_size=nterm, ndoc=ndoc)
-        eng = Engine(prog, g, use_pallas=use_pallas)
-        eng.run(iterations=2, state=jnp.asarray(gn, jnp.float32))
-        return g.vp_numpy()["N"]
-
-    import jax.numpy as jnp
-    ref = run(False)
-    out = run(True)
-    np.testing.assert_allclose(out, ref, rtol=3e-4, atol=3e-4)
-
-
-def test_vec2_segmented_calls_match():
-    """SMEM-bounded segmentation: multi-call vec2 equals single-call."""
-    import graphmat_tpu.ops.pallas_spmv_vec2 as m
-    rng = np.random.default_rng(3)
-    n, e, K = 3000, 20000, 20
-    s = rng.integers(0, n, e).astype(np.int64)
-    r = rng.integers(0, n, e).astype(np.int64)
-    w = rng.standard_normal(e).astype(np.float32)
-    x = rng.standard_normal((n, K)).astype(np.float32) * 0.3
-    vp = rng.standard_normal((n, K)).astype(np.float32) * 0.3
-
-    def proc(xv, ev, vpr, extra, rid, block_sum):
-        return xv * (ev - block_sum(xv * vpr))
-
-    old = m.NC_SEG_MAX
-    try:
-        plan1 = m.build_spmv_vec2_plan(s, r, w, n, wr=512,
-                                       windows=(16, 64), wy=16,
-                                       cell_min=64)
-        m.NC_SEG_MAX = 200
-        plan2 = m.build_spmv_vec2_plan(s, r, w, n, wr=512,
-                                       windows=(16, 64), wy=16,
-                                       cell_min=64)
-    finally:
-        m.NC_SEG_MAX = old
-    assert len(plan2.segs) > 1
-    y1 = np.asarray(m.spmv_vec2(plan1, x, proc, vp, interpret=True))
-    y2 = np.asarray(m.spmv_vec2(plan2, x, proc, vp, interpret=True))
-    np.testing.assert_array_equal(y1, y2)
-
-
 def test_triangles_bucketed_matches_engine():
     """Scalable degree-bucketed path: same totals as the engine path."""
-    from graphmat_tpu.ops.triangles import count_triangles_bucketed
+    from graphmat.ops.triangles import count_triangles_bucketed
     for seed in (13, 99):
         e = convert_to_upper_triangular(random_edgelist(40, 6, seed=seed))
         g = Graph(e)
@@ -308,7 +216,7 @@ def test_triangles_bucketed_matches_engine():
 
 
 def test_triangles_bucketed_fixture_2_10():
-    from graphmat_tpu.ops.triangles import count_triangles_bucketed
+    from graphmat.ops.triangles import count_triangles_bucketed
     e = load_edgelist("data/2_10_upper_triangle.bin.mtx")
     g = Graph(e)
     tri, total = run_triangle_counting(g, method="bucketed")
@@ -325,7 +233,7 @@ def test_triangles_bucketed_hubs_and_duplicates():
     """Power-law degrees; duplicate and self edges must be ignored.
     Runs both the default (whole graph in core: bitmap-only) and a
     forced-small core that exercises the tail broadcast path."""
-    from graphmat_tpu.ops.triangles import count_triangles_bucketed, _prep
+    from graphmat.ops.triangles import count_triangles_bucketed, _prep
     rng = np.random.default_rng(5)
     n, m = 1500, 60000
     s = rng.integers(0, n, m)
@@ -350,10 +258,10 @@ def test_triangles_bucketed_hubs_and_duplicates():
 
 
 def test_triangles_device_prep_matches_host():
-    """The fully on-device prep (impl='device', the TPU default) and the
+    """The fully on-device prep (impl='device', the default) and the
     native/numpy host prep agree — totals and per-vertex counts — across
     canonical and raw inputs and forced core sizes."""
-    from graphmat_tpu.ops.triangles import count_triangles_bucketed
+    from graphmat.ops.triangles import count_triangles_bucketed
     rng = np.random.default_rng(3)
     n, m = 900, 12000
     s = rng.integers(0, n, m)
@@ -383,8 +291,8 @@ def test_triangles_prep_numpy_matches_native():
     """The numpy fallback prep and the native gm_tc prep agree on the
     final counts (native may order receivers differently; totals and
     per-vertex attributions must match)."""
-    import graphmat_tpu.ops.triangles as T
-    from graphmat_tpu.native import native_available
+    import graphmat.ops.triangles as T
+    from graphmat.native import native_available
     if not native_available():
         import pytest
         pytest.skip("no native planner")
@@ -404,9 +312,9 @@ def test_triangles_prep_numpy_matches_native():
 
 
 def test_lda_permuted_matches_oracle():
-    """LDA under a degree permutation: the kernel paths must not infer
-    doc/term from the internal id (rid < ndoc breaks once ids are
-    relabeled) — the is_doc flag rides an encoded vp lane instead."""
+    """LDA under a degree permutation: doc/term must not be inferred
+    from the internal id (rid < ndoc breaks once ids are relabeled) —
+    the is_doc vertex property carries it instead."""
     ndoc, nterms, k = 6, 9, 4
     e = bipartite_edges(ndoc, nterms, seed=11)
     expect = lda_oracle(e, ndoc, nterms, k, iters=4)
@@ -420,7 +328,7 @@ def test_lda_permuted_matches_oracle():
 def test_triangles_unpacked_edge_path():
     """n > 2^24 ships edges as [2, e] int32 (the byte packings only
     cover ids below 2^24); both upload layouts must count identically."""
-    from graphmat_tpu.ops.triangles import count_triangles_bucketed
+    from graphmat.ops.triangles import count_triangles_bucketed
     rng = np.random.default_rng(2)
     m = 4000
     # a small clustered subgraph embedded at ids straddling 2^24
@@ -438,7 +346,7 @@ def test_triangles_sixbyte_edge_path():
     """2^20 < n <= 2^24 ships 6-byte planes; n <= 2^20 ships the 5-byte
     nibble-shared layout.  A subgraph straddling 2^20 (hi nibbles
     exercised on both endpoints) must count identically through both."""
-    from graphmat_tpu.ops.triangles import count_triangles_bucketed
+    from graphmat.ops.triangles import count_triangles_bucketed
     rng = np.random.default_rng(3)
     m = 4000
     base = (1 << 20) - 200

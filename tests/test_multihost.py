@@ -48,10 +48,10 @@ def test_two_process_dist_matches_single_device(tmp_path):
     got = _spawn_workers(tmp_path)
 
     # single-device oracle (this process, CPU)
-    from graphmat_tpu import Graph
-    from graphmat_tpu.apps.bfs import run_bfs
-    from graphmat_tpu.apps.pagerank import run_pagerank
-    from graphmat_tpu.utils.generators import rmat_edgelist
+    from graphmat import Graph
+    from graphmat.apps.bfs import run_bfs
+    from graphmat.apps.pagerank import run_pagerank
+    from graphmat.utils.generators import rmat_edgelist
     e = rmat_edgelist(8, 8, seed=3)
     pr, _ = run_pagerank(Graph(e))
     n = len(pr)
@@ -65,16 +65,16 @@ def test_two_process_sharded_ingest(tmp_path):
     partial lists are exchanged (allgather_edgelist = the reference's
     Isend/Irecv shuffle analog, SpMat.h:171-217), and the result matches
     the single-process whole-file run."""
-    from graphmat_tpu import Graph
-    from graphmat_tpu.apps.pagerank import run_pagerank
-    from graphmat_tpu.io.edgelist import write_edgelist
-    from graphmat_tpu.utils.generators import rmat_edgelist
+    from graphmat import Graph
+    from graphmat.apps.pagerank import run_pagerank
+    from graphmat.io.edgelist import write_edgelist
+    from graphmat.utils.generators import rmat_edgelist
     e = rmat_edgelist(8, 8, seed=3)
     # 4 shard files, strided over 2 hosts
     prefix = str(tmp_path / "shard")
     nsh = 4
     for i in range(nsh):
-        from graphmat_tpu.io.edgelist import EdgeList
+        from graphmat.io.edgelist import EdgeList
         sl = slice(i, None, nsh)
         write_edgelist(EdgeList(e.m, e.n, e.src[sl], e.dst[sl], e.val[sl]),
                        f"{prefix}{i}", binaryformat=False)
@@ -96,7 +96,7 @@ def test_cli_mesh_env_matches_single_device(tmp_path):
         e2 = dict(env)
         e2["GRAPHMAT_MESH"] = mesh
         r = subprocess.run(
-            [sys.executable, "-m", "graphmat_tpu.apps.pagerank",
+            [sys.executable, "-m", "graphmat.apps.pagerank",
              "data/test.bin.mtx"], env=e2, cwd=REPO, timeout=240,
             capture_output=True, text=True)
         assert r.returncode == 0, r.stderr[-2000:]

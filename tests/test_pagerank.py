@@ -4,11 +4,11 @@
 import numpy as np
 import pytest
 
-from graphmat_tpu import Graph, load_edgelist
-from graphmat_tpu.apps.pagerank import run_pagerank
-from graphmat_tpu.utils.generators import (chain_edgelist,
-                                           circular_chain_edgelist,
-                                           random_edgelist)
+from graphmat import Graph, load_edgelist
+from graphmat.apps.pagerank import run_pagerank
+from graphmat.utils.generators import (chain_edgelist,
+                                       circular_chain_edgelist,
+                                       random_edgelist)
 from oracle import OracleGraph, oracle_run, vp_array
 
 

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphmat_tpu.core.types import ANY, MAX, MIN, SUM, Monoid
-from graphmat_tpu.ops.segment import (masked_fill_identity, segment_any,
-                                      segment_reduce)
+from graphmat.core.types import ANY, MAX, MIN, SUM, Monoid
+from graphmat.ops.segment import (masked_fill_identity, segment_any,
+                                  segment_reduce)
 
 
 def make_sorted_segments(e=257, nseg=50, seed=0):
@@ -86,8 +86,8 @@ def test_masked_fill_identity_tree():
 
 def test_spmv_identity():
     """y = I·x == x — mirrors ``test/test_spmv.cpp:38-103``."""
-    from graphmat_tpu import Graph
-    from graphmat_tpu.utils.generators import identity_edgelist
+    from graphmat import Graph
+    from graphmat.utils.generators import identity_edgelist
     n = 70
     g = Graph(identity_edgelist(n))
     rng = np.random.default_rng(4)
@@ -103,9 +103,9 @@ def test_collect_neighbors_direct():
     """GetNeighbors analog (``test/test_get_neighbors.cpp``): every vertex
     collects its sorted out-neighbor ids."""
     import jax.numpy as jnp
-    from graphmat_tpu import Graph
-    from graphmat_tpu.ops.neighbors import PAD_ID, collect_neighbors
-    from graphmat_tpu.utils.generators import random_edgelist
+    from graphmat import Graph
+    from graphmat.ops.neighbors import PAD_ID, collect_neighbors
+    from graphmat.utils.generators import random_edgelist
     e = random_edgelist(40, 4, seed=19)
     g = Graph(e)
     nb = np.asarray(collect_neighbors(g, receiver="src"))

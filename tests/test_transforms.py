@@ -3,9 +3,9 @@
 
 import numpy as np
 
-from graphmat_tpu.io import transforms as tf
-from graphmat_tpu.io.edgelist import edgelist_from_arrays
-from graphmat_tpu.utils.generators import random_edgelist
+from graphmat.io import transforms as tf
+from graphmat.io.edgelist import edgelist_from_arrays
+from graphmat.utils.generators import random_edgelist
 
 
 def make(src, dst, val=None, n=10):
@@ -88,9 +88,9 @@ def test_randomize_vertex_ids_glibc_bit_parity():
     truth below was produced by C code calling the real glibc
     srand/rand (see utils/reference_rng.py glibc_rand_np docstring)."""
     import numpy as np
-    from graphmat_tpu.io.transforms import randomize_vertex_ids
-    from graphmat_tpu.utils.reference_rng import (glibc_rand_np,
-                                                  glibc_square_mapping_np)
+    from graphmat.io.transforms import randomize_vertex_ids
+    from graphmat.utils.reference_rng import (glibc_rand_np,
+                                              glibc_square_mapping_np)
     # raw rand() sequence after srand(5)
     expect_seq = [590011675, 99788765, 2131925610, 171864072, 317159276,
                   171035632, 602511920, 963050649, 1069979073, 1919854381]
@@ -106,7 +106,7 @@ def test_randomize_vertex_ids_glibc_bit_parity():
     assert h == 10847347724954123681
     assert m1000[:5].tolist() == [228, 765, 249, 998, 276]
     # the native C path (when available) must agree with the python one
-    from graphmat_tpu import edgelist_from_arrays
+    from graphmat import edgelist_from_arrays
     e = edgelist_from_arrays([1, 2, 3], [2, 3, 1], m=1000, n=1000)
     out, perm = randomize_vertex_ids(e, seed=5)
     np.testing.assert_array_equal(perm, m1000 + 1)

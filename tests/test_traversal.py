@@ -9,17 +9,17 @@ import pytest
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import breadth_first_order, dijkstra
 
-from graphmat_tpu import Graph
-from graphmat_tpu.apps.bfs import INF_DEPTH, run_bfs
-from graphmat_tpu.apps.delta_stepping import run_delta_stepping
-from graphmat_tpu.apps.sssp import INF_DIST, run_sssp
-from graphmat_tpu.apps.topological_sort import (INF_ORDER,
-                                                run_topological_sort)
-from graphmat_tpu.io.edgelist import EdgeList
-from graphmat_tpu.utils.generators import (chain_edgelist,
-                                           circular_chain_edgelist,
-                                           random_edgelist,
-                                           upper_triangular_edgelist)
+from graphmat import Graph
+from graphmat.apps.bfs import INF_DEPTH, run_bfs
+from graphmat.apps.delta_stepping import run_delta_stepping
+from graphmat.apps.sssp import INF_DIST, run_sssp
+from graphmat.apps.topological_sort import (INF_ORDER,
+                                            run_topological_sort)
+from graphmat.io.edgelist import EdgeList
+from graphmat.utils.generators import (chain_edgelist,
+                                       circular_chain_edgelist,
+                                       random_edgelist,
+                                       upper_triangular_edgelist)
 
 
 def scipy_depths(e: EdgeList, source1: int) -> np.ndarray:
@@ -120,7 +120,7 @@ def test_bfs_fast_matches_classic(permute, source):
     """Shortcut-augmented packed-key BFS: depths identical to classic
     BFS, parents a valid BFS tree, fewer iterations on whisker-heavy
     graphs."""
-    from graphmat_tpu.apps.bfs import build_bfs_shortcuts, run_bfs_fast
+    from graphmat.apps.bfs import build_bfs_shortcuts, run_bfs_fast
     e = _whiskered_edgelist()
     d_ref = scipy_depths(e, source)
 
@@ -145,24 +145,6 @@ def test_bfs_fast_matches_classic(permute, source):
     assert niter <= it_classic
 
 
-def test_bfs_fast_pallas_kernel_path():
-    """The packed-key trick through the REAL min kernel (interpret
-    mode): f32 bit-pattern monotonicity + the bitcast weight add in the
-    traced process fn must give depths identical to scipy."""
-    from graphmat_tpu.apps.bfs import build_bfs_shortcuts, run_bfs_fast
-    e = _whiskered_edgelist(seed=7)
-    e_aug, pred0, ind1 = build_bfs_shortcuts(e)
-    g = Graph(e_aug, build_in_edges=False, permute="degree")
-    depth, parent, niter = run_bfs_fast(g, 1, pred0, ind1,
-                                        use_pallas=True)
-    np.testing.assert_array_equal(depth, scipy_depths(e, 1))
-    edges = set(zip(e.src.tolist(), e.dst.tolist()))
-    for v in range(e.n):
-        if depth[v] not in (0, INF_DEPTH):
-            p = int(parent[v])
-            assert depth[p - 1] == depth[v] - 1 and (p, v + 1) in edges
-
-
 def _early_delivery_edgelist():
     """Shortcut edges deliver a NON-final key early: z is reached at
     sweep 2 with depth 4 via the whisker shortcut, then improved to its
@@ -180,42 +162,6 @@ def _early_delivery_edgelist():
     dst = np.array([2, 3, 7, 4, 5, 6, 7, 3], np.int64)
     return EdgeList(src=src, dst=dst, val=np.ones(8, np.float64),
                     m=7, n=7)
-
-
-def test_bfs_fast_receiver_final_exact(monkeypatch):
-    """receiver_final must be bit-exact: run with the hook, without it,
-    and with the inexact 'visited' variant.  Hook on == hook off
-    (depths AND parents); the 'visited' variant must corrupt z's depth
-    on the early-delivery graph — pinning why the condition is
-    ``key_depth <= it``."""
-    import jax.numpy as jnp
-
-    from graphmat_tpu.apps.bfs import (BFSFastProgram, INF_KEY,
-                                       build_bfs_shortcuts, run_bfs_fast)
-    e = _early_delivery_edgelist()
-    d_ref = scipy_depths(e, 1)
-    assert d_ref[6] == 3          # z's true depth
-    e_aug, pred0, ind1 = build_bfs_shortcuts(e)
-    assert len(e_aug.src) > len(e.src), "no shortcut built"
-
-    def run(hook):
-        if hook is not None:
-            monkeypatch.setattr(BFSFastProgram, "receiver_final", hook)
-        g = Graph(e_aug, build_in_edges=False)
-        out = run_bfs_fast(g, 1, pred0, ind1, use_pallas=True)
-        monkeypatch.undo()
-        return out
-
-    d_on, p_on, _ = run(None)
-    d_off, p_off, _ = run(lambda self, state, vp, it: None)
-    np.testing.assert_array_equal(d_on, d_off)
-    np.testing.assert_array_equal(p_on, p_off)
-    np.testing.assert_array_equal(d_on, d_ref)
-
-    d_vis, _, _ = run(lambda self, state, vp, it:
-                      vp["key"] < jnp.int32(INF_KEY))
-    assert d_vis[6] == 4, \
-        "early-delivery graph no longer exercises the visited-skip hazard"
 
 
 # ---------------------------------------------------------------- SSSP
@@ -249,8 +195,8 @@ def test_delta_stepping_matches_dijkstra(delta):
 
 
 def test_delta_stepping_matches_sssp_fixture():
-    from graphmat_tpu import load_edgelist
-    from graphmat_tpu.io.transforms import random_edge_weights
+    from graphmat import load_edgelist
+    from graphmat.io.transforms import random_edge_weights
     e = random_edge_weights(load_edgelist("data/test.bin.mtx"), 7, seed=2)
     d1, _ = run_sssp(Graph(e, build_in_edges=False), 1)
     d2, _ = run_delta_stepping(e, 3, 1)
@@ -277,7 +223,7 @@ def test_toposort_dag_valid():
 
 
 def test_toposort_random_dag():
-    from graphmat_tpu.io.transforms import convert_to_upper_triangular
+    from graphmat.io.transforms import convert_to_upper_triangular
     e = convert_to_upper_triangular(random_edgelist(50, 4, seed=4))
     order, has_cycle, _ = run_topological_sort(Graph(e))
     assert not has_cycle
@@ -296,7 +242,7 @@ def test_toposort_detects_cycle():
 
 def test_connected_components_matches_scipy():
     from scipy.sparse.csgraph import connected_components as cc_scipy
-    from graphmat_tpu.apps.connected_components import \
+    from graphmat.apps.connected_components import \
         run_connected_components
     e = random_edgelist(120, 2, seed=33)
     n = max(e.m, e.n)
@@ -312,49 +258,11 @@ def test_connected_components_matches_scipy():
 
 
 def test_connected_components_two_islands():
-    from graphmat_tpu.apps.connected_components import \
+    from graphmat.apps.connected_components import \
         run_connected_components
-    from graphmat_tpu.io.edgelist import edgelist_from_arrays
+    from graphmat.io.edgelist import edgelist_from_arrays
     e = edgelist_from_arrays([1, 2, 4, 5], [2, 3, 5, 6], m=6, n=6)
     labels, ncomp, _ = run_connected_components(Graph(e))
     assert ncomp == 2
     assert labels[0] == labels[1] == labels[2] == 1
     assert labels[3] == labels[4] == labels[5] == 4
-
-
-def test_bfs_pallas_sparse_frontier_engine():
-    """ACTIVE_ONLY programs drive the v2 kernels' chunk-skip path; depths
-    must match scipy exactly (interpret mode on CPU)."""
-    from graphmat_tpu.apps.bfs import BFSProgram, init_bfs_graph
-    from graphmat_tpu.core.runtime import Engine
-    e = random_edgelist(120, 4, seed=7)
-    g = Graph(e, build_in_edges=False)
-    init_bfs_graph(g, 1)
-    eng = Engine(BFSProgram(), g, use_pallas=True)
-    assert eng.pallas_version >= 2 and eng.use_pallas
-    eng.run()
-    depth = g.vp_numpy()["depth"]
-    np.testing.assert_array_equal(depth, scipy_depths(e, 1))
-
-
-def test_incremental_pr_pallas_sparse_engine():
-    """ACTIVE_ONLY + sum: IncrementalPageRank exercises the sum kernel's
-    chunk-skip path (plus its sparse got pass)."""
-    from graphmat_tpu.apps.incremental_pagerank import (DegreeProgram,
-                                                        DeltaPageRankProgram)
-    from graphmat_tpu.apps.pagerank import run_pagerank
-    from graphmat_tpu.core.runtime import Engine
-    e = random_edgelist(100, 5, seed=9)
-    pr, _ = run_pagerank(Graph(e, build_in_edges=True))
-    g2 = Graph(e, build_in_edges=True)
-    g2.init_vertexproperty(delta=np.float32(0.3), pagerank=np.float32(0.3),
-                           degree=np.int32(0))
-    g2.set_all_active()
-    Engine(DegreeProgram(), g2).run(iterations=1)
-    g2.set_all_active()
-    eng = Engine(DeltaPageRankProgram(), g2, use_pallas=True)
-    assert eng.pallas_version >= 2
-    eng.run(max_iterations=10_000)
-    dpr = g2.vp_numpy()["pagerank"]
-    np.testing.assert_allclose(np.asarray(dpr, np.float64),
-                               np.asarray(pr, np.float64), atol=5e-4)
